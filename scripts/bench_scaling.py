@@ -7,8 +7,8 @@ grows with device count here — the meaningful signal is the aggregate
 throughput ratio (total reads / time, relative to 1 device): values ~>=1 mean
 the collectives add no serial bottleneck, and on real multi-chip hardware
 (each device its own silicon) the same program's weak-scaling time stays
-flat.  Multi-chip TPU hardware is not reachable from this environment; the
-program is identical to what drives a real slice.
+flat.  The program is identical to what drives real cards
+(`python chip_smoke.py --chips 4` runs the multi-card pipeline on them).
 
 Usage: python scripts/bench_scaling.py
 """

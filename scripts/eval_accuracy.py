@@ -27,10 +27,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    import jax
-
-    if os.environ.get("JAX_PLATFORMS") != "tpu":
-        jax.config.update("jax_platforms", "cpu")
     import logging
 
     logging.disable(logging.INFO)

@@ -1,6 +1,5 @@
 #!/usr/bin/env python3
-"""Measure 2-process scaling: wall clock + exchange bytes (VERDICT r3 #5:
-a NUMBER instead of the structural prose claim in SCALING_r03.json).
+"""Measure 2-process scaling: wall clock + exchange bytes.
 
 Runs the same workload through the pipeline single-process and as a
 2-process jax.distributed job (per-process BAM block ranges, fixed-dtype
@@ -104,15 +103,13 @@ def main():
     import bench
 
     tmp_dir = tempfile.mkdtemp(prefix="svim_scale_")
-    # SVIM_SCALE_WORKLOAD_DIR reuses a pre-generated bench workload (the
-    # 65k generation alone costs ~10 min of pure Python)
+    # SVIM_SCALE_WORKLOAD_DIR reuses a pre-generated bench workload
     reuse = os.environ.get("SVIM_SCALE_WORKLOAD_DIR")
     if reuse and os.path.exists(os.path.join(reuse, "bench.bam")):
         bam = os.path.join(reuse, "bench.bam")
         genome = os.path.join(reuse, "genome.fa")
     else:
-        bam, genome, _header, _records = bench.make_workload(
-            reuse or tmp_dir)
+        bam, genome = bench.make_workload(reuse or tmp_dir)
     soa_bytes, pickle_bytes = _payload_sizes(bam, genome, tmp_dir)
 
     base_env = dict(os.environ)

@@ -21,7 +21,7 @@ from svim_tpu.utils.device import setup_jax_cache
 def main():
     setup_jax_cache()
     tmp_dir = tempfile.mkdtemp(prefix="svim_profile_sv1_")
-    bam_path, genome_path, _header, _records = bench.make_workload(tmp_dir)
+    bam_path, genome_path = bench.make_workload(tmp_dir)
     options = parse_arguments(arguments=["alignment", tmp_dir, bam_path,
                                          genome_path])
 

@@ -1,12 +1,14 @@
-"""svim-tpu: a TPU-native structural-variant calling framework for long reads.
+"""svim-tpu: an accelerator-native structural-variant calling framework for
+long reads.
 
 A from-scratch rebuild of the capability surface of SVIM v2.0.0
-(reference: /root/reference, svim/svim:3) designed array-first for TPU:
+(reference: /root/reference, svim/svim:3) designed array-first for an
+accelerator (an NVIDIA GPU):
 
 - COLLECT: packed CIGAR/segment tensors -> vectorized JAX kernels
   (reference semantics: svim/SVIM_intra.py, svim/SVIM_inter.py)
 - CLUSTER: partition gap-cut + batched span-position/edit-distance matrices
-  (Pallas / JAX) + average-linkage (reference: svim/SVIM_clustering.py)
+  (JAX) + average-linkage (reference: svim/SVIM_clustering.py)
 - COMBINE: BND<->INS merging, POA insertion consensus (native C++)
   (reference: svim/SVIM_COMBINE.py, svim/SVIM_merging.py)
 - GENOTYPE: vectorized interval joins over the packed alignment table

@@ -28,7 +28,7 @@ from svim_tpu.output import (
     write_signature_clusters_bed,
     write_signature_clusters_vcf,
 )
-from svim_tpu.plots import plot_sv_alleles, plot_sv_lengths
+from svim_tpu.plots import write_plots
 from svim_tpu.utils.timing import StageTimer
 
 
@@ -338,13 +338,9 @@ def run_pipeline(options):
     root_logger.setLevel(logging.WARNING)
     with timer.stage("plots"):
         if primary:
-            plot_sv_lengths(deletion_candidates, inversion_candidates,
-                            int_duplication_candidates, tan_dup_candidates,
-                            novel_insertion_candidates, options)
-            if not options.skip_genotyping:
-                plot_sv_alleles(deletion_candidates + inversion_candidates
-                                + int_duplication_candidates + novel_insertion_candidates,
-                                options)
+            write_plots(deletion_candidates, inversion_candidates,
+                        int_duplication_candidates, tan_dup_candidates,
+                        novel_insertion_candidates, options)
     root_logger.setLevel(logging.DEBUG if options.verbose else logging.INFO)
     timer.report()
     logging.info("Done.")
@@ -357,20 +353,14 @@ def main(arguments=None):
         print("Please choose one of the two modes ('reads' or 'alignment'). "
               "See --help for more information.")
         return 1
-    from svim_tpu.utils.device import select_backend
-    if options.distributed and options.device_backend == "auto":
-        # Every rank must make the IDENTICAL platform choice or the
-        # collectives see mismatched global device sets; a per-rank link
-        # probe could split on a borderline link.  Multi-host deployments
-        # run on attached pod slices (fast links), so auto keeps the
-        # device there; pass --device_backend cpu explicitly for host-XLA
-        # distributed runs (as the tests and scaling scripts do).
-        os.environ.setdefault("SVIM_LINK_AUTO", "0")
-    select_backend(options.device_backend)
+    from svim_tpu.utils.device import pin_platform, resolve_platform
+    pin_platform(options.device_backend)
     if options.distributed:
         # must run before the first jax computation creates backends
         from svim_tpu.parallel.multihost import initialize_from_env
         initialize_from_env()
+    import jax
+    resolve_platform(options.device_backend, jax.default_backend())
     _setup_logging(options)
     logging.info("****************** Start svim-tpu, version {0} ******************".format(
         __version__))

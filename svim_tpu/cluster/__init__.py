@@ -1,7 +1,7 @@
 """CLUSTER stage: partition signatures and merge them into clusters.
 
 Reference semantics: svim/SVIM_clustering.py, svim/SVIM_CLUSTER.py.
-Host path here is the exactness oracle; the batched TPU distance kernels live
+Host path here is the exactness oracle; the batched device distance kernels live
 in svim_tpu.ops and are wired in through svim_tpu.cluster.accel.
 """
 

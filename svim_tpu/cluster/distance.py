@@ -2,8 +2,8 @@
 
 Behavioral contract: svim/SVIM_clustering.py:32-119 (per-type span-position
 distance, haplotype edit distance for insertions, cluster- and candidate-level
-variants).  The batched TPU implementation of the same contract lives in
-svim_tpu/ops/distance.py; this module is the scalar oracle.
+variants).  The batched device implementation of the same contract lives in
+svim_tpu/ops/distance_kernel.py; this module is the scalar oracle.
 """
 
 from __future__ import annotations

@@ -13,6 +13,8 @@ import argparse
 import dataclasses
 from typing import Optional, Tuple
 
+from svim_tpu.utils.device import BACKENDS
+
 ALL_SV_TYPES = "DEL,INS,INV,DUP:TANDEM,DUP:INT,BND"
 
 
@@ -81,7 +83,7 @@ class Config:
                                        # ~8x faster to render) | "bar" (the
                                        # reference's exact per-bin patches,
                                        # SVIM_plot.py:41-63)
-    device_backend: str = "auto"       # "auto" | "tpu" | "cpu" | "host" (no kernels)
+    device_backend: str = "auto"       # "auto" | "gpu" | "cpu" | "host" (no kernels)
     edit_backend: str = "auto"         # "auto" | "wavefront" | "python"
     cluster_backend: str = "device"    # "device" (on-device agglomeration, exact
                                        # fallback for f32-ambiguous partitions) | "exact"
@@ -176,18 +178,19 @@ def _add_common_options(parser: argparse.ArgumentParser) -> None:
 
     execution = parser.add_argument_group("EXECUTION (svim-tpu)")
     execution.add_argument("--device_backend", type=str, default=d.device_backend,
-                           choices=("auto", "tpu", "cpu", "host"),
-                           help="Device backend for the array path; 'host' disables "
-                                "the device kernels entirely (default: %(default)s).")
+                           choices=BACKENDS,
+                           help="Device backend for the array path: 'auto' uses "
+                                "JAX's default device; 'gpu' fails when no GPU is "
+                                "present; 'cpu' runs the kernels on host XLA; "
+                                "'host' disables the device kernels entirely "
+                                "(default: %(default)s).")
     execution.add_argument("--edit_backend", type=str, default=d.edit_backend,
                            choices=("auto", "wavefront", "python"),
                            help="Edit-distance backend for insertion clustering: "
-                                "'auto' runs the native host batch (measured fastest "
-                                "on every shape; SVIM_RESIDENT_INS_AUTO=1 flips TPU "
-                                "runs to the device-resident wavefront route for "
-                                "attached silicon); 'wavefront' forces the device "
-                                "route; 'python' forces pure Python "
-                                "(default: %(default)s).")
+                                "'auto' runs the native host batch; 'wavefront' runs "
+                                "the device-resident route (wavefront edit distances, "
+                                "matrices and agglomeration on the device); 'python' "
+                                "forces pure Python (default: %(default)s).")
     execution.add_argument("--cluster_backend", type=str, default=d.cluster_backend,
                            choices=("exact", "device"),
                            help="Clustering backend: 'device' (batched on-device "
@@ -236,7 +239,7 @@ def _add_common_options(parser: argparse.ArgumentParser) -> None:
 def parse_arguments(program_version: str = "2.0.0", arguments=None) -> Config:
     parser = argparse.ArgumentParser(
         prog="svim-tpu",
-        description="svim-tpu {0}: TPU-native structural variant identification from long reads.".format(program_version),
+        description="svim-tpu {0}: accelerator-native structural variant identification from long reads.".format(program_version),
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     subparsers = parser.add_subparsers(dest="sub")
     # reference: SVIM_input_parsing.py:25-28

@@ -3,7 +3,7 @@
 From-scratch replacement for htslib's BAM layer.  BGZF is a multi-member gzip
 stream, so decompression goes through zlib; record fields follow the SAM spec
 section 4.2.  A native C++ fast path (svim_tpu/native/bamio.cpp) decodes
-straight into packed numpy arrays for the TPU COLLECT path; this module is the
+straight into packed numpy arrays for the device COLLECT path; this module is the
 portable reference implementation and the writer used by tests.
 """
 
@@ -14,10 +14,11 @@ import struct
 import zlib
 from typing import List
 
+import numpy as np
+
 from svim_tpu.io.sam import AlignmentHeader, AlignmentRecord
 
 SEQ_CODES = "=ACMGRSVTWYHKDBN"
-_CODE_FOR_BASE = {b: i for i, b in enumerate(SEQ_CODES)}
 CIGAR_OPS = "MIDNSHP=X"
 
 BGZF_EOF = bytes.fromhex(
@@ -140,41 +141,61 @@ def _parse_tags(data: bytes, p: int, end: int):
 # Writer (used by tests and the alignment-caching stage)
 # ------------------------------------------------------------------------------------
 
+def _compress_block(chunk: bytes, level: int) -> bytes:
+    compressor = zlib.compressobj(level, zlib.DEFLATED, -15)
+    payload = compressor.compress(chunk) + compressor.flush()
+    bsize = len(payload) + 25 + 1
+    header = struct.pack("<BBBBIBBHBBHH",
+                         0x1F, 0x8B, 8, 4, 0, 0, 0xFF, 6,
+                         ord("B"), ord("C"), 2, bsize - 1)
+    footer = struct.pack("<II", zlib.crc32(chunk) & 0xFFFFFFFF, len(chunk))
+    return header + payload + footer
+
+
 def bgzf_compress(data: bytes, level: int = 6) -> bytes:
-    """Compress bytes into a BGZF stream (64 KiB blocks + EOF marker)."""
-    out = bytearray()
-    for start in range(0, len(data), 0xFF00):
-        chunk = data[start:start + 0xFF00]
-        compressor = zlib.compressobj(level, zlib.DEFLATED, -15)
-        payload = compressor.compress(chunk) + compressor.flush()
-        bsize = len(payload) + 25 + 1
-        header = struct.pack("<BBBBIBBHBBHH",
-                             0x1F, 0x8B, 8, 4, 0, 0, 0xFF, 6,
-                             ord("B"), ord("C"), 2, bsize - 1)
-        footer = struct.pack("<II", zlib.crc32(chunk) & 0xFFFFFFFF, len(chunk))
-        out += header + payload + footer
-    out += BGZF_EOF
-    return bytes(out)
+    """Compress bytes into a BGZF stream (64 KiB blocks + EOF marker).
+    Blocks are independent, so they compress on a thread pool (zlib
+    releases the GIL); the output is identical to a serial pass."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from svim_tpu.utils.cores import available_cores
+
+    view = memoryview(data)
+    chunks = [view[start:start + 0xFF00]
+              for start in range(0, len(data), 0xFF00)]
+    with ThreadPoolExecutor(max_workers=max(1, available_cores())) as pool:
+        blocks = list(pool.map(lambda chunk: _compress_block(chunk, level),
+                               chunks))
+    return b"".join(blocks) + BGZF_EOF
 
 
-def _encode_record(rec: AlignmentRecord) -> bytes:
-    name = rec.query_name.encode() + b"\x00"
-    cigar = rec.cigartuples or []
-    cigar_bytes = struct.pack("<{0}I".format(len(cigar)),
-                              *[(length << 4) | op for op, length in cigar])
-    seq = rec.query_sequence or ""
-    l_seq = len(seq)
-    seq_bytes = bytearray()
-    for i in range(0, l_seq, 2):
-        hi = _CODE_FOR_BASE.get(seq[i].upper(), 15)
-        lo = _CODE_FOR_BASE.get(seq[i + 1].upper(), 15) if i + 1 < l_seq else 0
-        seq_bytes.append((hi << 4) | lo)
-    if rec.query_qualities is not None:
-        qual_bytes = bytes(rec.query_qualities)
+# 4-bit BAM sequence code per ASCII byte (case-insensitive, 15 = N/other)
+_SEQ_LUT = np.full(256, 15, dtype=np.uint8)
+for _code, _base in enumerate(SEQ_CODES):
+    _SEQ_LUT[ord(_base)] = _code
+    _SEQ_LUT[ord(_base.lower())] = _code
+
+
+def encode_record(query_name: str, flag: int, reference_id: int,
+                  reference_start: int, mapping_quality: int, cigar_words,
+                  sequence: bytes, qualities=None, tags=(),
+                  next_reference_id: int = -1, next_reference_start: int = -1,
+                  template_length: int = 0) -> bytes:
+    """One BAM record (block_size prefix included).  cigar_words are the
+    BAM encoding (length << 4 | op); tags are (name, value, value_type)."""
+    name = query_name.encode() + b"\x00"
+    cigar_bytes = np.asarray(cigar_words, dtype="<u4").tobytes()
+    codes = _SEQ_LUT[np.frombuffer(sequence, dtype=np.uint8)]
+    l_seq = len(codes)
+    if l_seq % 2:
+        codes = np.append(codes, np.uint8(0))
+    seq_bytes = ((codes[0::2] << 4) | codes[1::2]).astype(np.uint8).tobytes()
+    if qualities is not None:
+        qual_bytes = bytes(qualities)
     else:
         qual_bytes = b"\xff" * l_seq
     tag_bytes = bytearray()
-    for tag, (value, value_type) in rec.tags.items():
+    for tag, value, value_type in tags:
         tag_bytes += tag.encode()
         if value_type is None:
             value_type = "i" if isinstance(value, int) else ("Z" if isinstance(value, str) else "f")
@@ -188,15 +209,33 @@ def _encode_record(rec: AlignmentRecord) -> bytes:
         else:
             raise ValueError("unsupported tag type for writing: {0}".format(value_type))
     body = struct.pack("<iiBBHHHiiii",
-                       rec.reference_id, rec.reference_start, len(name),
-                       rec.mapping_quality, 0, len(cigar), rec.flag, l_seq,
-                       rec.next_reference_id, rec.next_reference_start,
-                       rec.template_length)
-    body += name + cigar_bytes + bytes(seq_bytes) + qual_bytes + bytes(tag_bytes)
+                       reference_id, reference_start, len(name),
+                       mapping_quality, 0, len(cigar_bytes) // 4, flag, l_seq,
+                       next_reference_id, next_reference_start,
+                       template_length)
+    body += name + cigar_bytes + seq_bytes + qual_bytes + bytes(tag_bytes)
     return struct.pack("<i", len(body)) + body
 
 
+def _encode_record(rec: AlignmentRecord) -> bytes:
+    cigar = rec.cigartuples or []
+    return encode_record(
+        rec.query_name, rec.flag, rec.reference_id, rec.reference_start,
+        rec.mapping_quality, [(length << 4) | op for op, length in cigar],
+        (rec.query_sequence or "").encode(), rec.query_qualities,
+        [(tag, value, value_type)
+         for tag, (value, value_type) in rec.tags.items()],
+        rec.next_reference_id, rec.next_reference_start,
+        rec.template_length)
+
+
 def write_bam(filename: str, header: AlignmentHeader, records) -> None:
+    write_bam_records(filename, header, map(_encode_record, records))
+
+
+def write_bam_records(filename: str, header: AlignmentHeader,
+                      encoded_records) -> None:
+    """Write a BAM from already-encoded records (encode_record output)."""
     text = header.text
     if text and not text.endswith("\n"):
         text += "\n"
@@ -208,7 +247,7 @@ def write_bam(filename: str, header: AlignmentHeader, records) -> None:
         name_bytes = name.encode() + b"\x00"
         payload += struct.pack("<i", len(name_bytes)) + name_bytes
         payload += struct.pack("<i", length)
-    for rec in records:
-        payload += _encode_record(rec)
+    for record in encoded_records:
+        payload += record
     with open(filename, "wb") as out:
         out.write(bgzf_compress(bytes(payload)))

@@ -1,6 +1,6 @@
 """Packing of alignment records into fixed-width struct-of-array tensors.
 
-This is the boundary between the host data plane and the TPU kernels: ragged
+This is the boundary between the host data plane and the device kernels: ragged
 CIGARs become padded (N, K) op/len arrays (bucketed K to bound recompiles),
 per-alignment scalars become int32 columns, and read names/sequences stay on
 the host, addressed by row index.  The reference has no analog — it hands
@@ -81,8 +81,7 @@ def encode_cigars_u8(cigar_words: np.ndarray):
     exceeds 15 (typically ~2 per long read: the terminal match run and the
     SV op).  Decode on device: lens = (w >> 4) + scatter_add(deltas).
 
-    Quarters the host->device traffic vs int32 (the dominant cost of the
-    device COLLECT pass over a bandwidth-limited link).  Returns None when
+    Quarters the host->device traffic vs int32.  Returns None when
     too many ops overflow for the encoding to pay off."""
     lens = cigar_words >> 4
     ops = cigar_words & 0xF

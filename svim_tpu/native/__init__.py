@@ -47,9 +47,13 @@ def _build() -> bool:
                "-o", _LIBRARY, _SOURCE, _POA_SOURCE, "-lz", "-lpthread",
                "-ldl"])
     try:
-        subprocess.run(command, check=True, capture_output=True)
+        subprocess.run(command, check=True, capture_output=True, text=True)
         return True
-    except (subprocess.CalledProcessError, FileNotFoundError) as error:
+    except subprocess.CalledProcessError as error:
+        logging.warning("native build failed (%s); using Python fallbacks\n%s",
+                        error, error.stderr)
+        return False
+    except FileNotFoundError as error:
         logging.warning("native build failed (%s); using Python fallbacks", error)
         return False
 
@@ -595,15 +599,11 @@ def bgzf_decompress_parallel(data: bytes, n_threads: int = 0):
 def _scan_workers(reserve: int) -> int:
     """Inflate worker count for the fused scan paths.
 
-    Overridable via SVIM_SCAN_WORKERS.  The round-4 'bandwidth-bound,
-    2 == 3 == 4 workers' reading did not reproduce: the round-5 control
-    (scripts/measure_inflate_bw.cpp + the real-BAM rerun in BENCH_NOTES.md
-    'Round 5: inflate control') measured pure inflate scaling near-linearly
-    to 6.8 GB/s at 4 threads against a 29 GB/s 4-thread memcpy ceiling, and
-    the fused inflate+walk at 0.047 s with 4 workers vs 0.064 s with 3 on
-    the same 307 MB stream — the r4 plateau was box degradation, not DRAM.
-    `reserve` keeps cores for the walker/caller when measurement shows that
-    wins; callers pass what their own A/B found."""
+    Overridable via SVIM_SCAN_WORKERS.  Pure inflate scales near-linearly
+    with threads until memory bandwidth (scripts/measure_inflate_bw.cpp
+    measures both on a given host).  `reserve` keeps cores for the
+    walker/caller when measurement shows that wins; callers pass what their
+    own A/B found."""
     try:
         forced = int(os.environ.get("SVIM_SCAN_WORKERS", "0"))
     except ValueError:

@@ -4,7 +4,7 @@
 //    struct-of-array columns (the role htslib plays for the reference,
 //    SVIM_COLLECT.py:133, rebuilt for array consumers).  Two-pass:
 //    bam_count() sizes the batch, bam_fill() fills preallocated numpy
-//    buffers, including the padded (N, K) CIGAR arrays consumed by the TPU
+//    buffers, including the padded (N, K) CIGAR arrays consumed by the device
 //    kernels.
 // 2. Two-piece-affine global aligner (Gotoh with two gap cost lines),
 //    replacing SPOA's algorithm=1 pairwise core (SVIM_COMBINE.py:208) for
@@ -19,6 +19,7 @@
 #include <cstring>
 #include <functional>
 #include <mutex>
+#include <string>
 #include <thread>
 #include <vector>
 

@@ -2,14 +2,13 @@
 
 Device counterpart of svim_tpu.cluster.accel / svim_tpu.cluster.distance
 (reference contract: SVIM_clustering.py:47-96).  Partitions are padded to a
-fixed P (tile-aligned, 128) and processed as (B, P) struct-of-arrays ->
-(B, P, P) distance tensors.  Two implementations: a jnp version XLA fuses on
-the VPU, and a Pallas kernel tiled 128x128 for TPU.
+fixed P (128) and processed as (B, P) struct-of-arrays ->
+(B, P, P) distance tensors in plain jnp, which XLA fuses into one kernel.
 
 Role: the production CLUSTER stage builds its matrices inside the fused
 agglomeration kernel (ops/linkage_kernel.span_position_agglomerate_batched
-— matrix + dedup + linkage in ONE program, no (B, P, P) tensor ever hits
-HBM).  This standalone kernel remains the isolated reference
+— matrix + dedup + linkage in ONE jitted program).  This standalone
+version remains the isolated reference
 implementation of the distance contract (pinned against the host oracle
 and sharded over a virtual mesh in tests/test_parallel.py) and the
 starting point for any consumer that needs raw distance tensors.
@@ -23,7 +22,6 @@ import jax
 import jax.numpy as jnp
 
 BIG = 99999.0
-TILE = 128
 
 
 @partial(jax.jit, static_argnames=("wall_same_read",))
@@ -47,60 +45,3 @@ def span_position_matrix(starts, ends, read_ids, valid,
         eye = jnp.eye(starts.shape[1], dtype=bool)[None]
         distance = jnp.where(same_read & ~eye, BIG, distance)
     return jnp.where(pair_valid, distance, BIG)
-
-
-def _span_position_tile_kernel(starts_ref, ends_ref, reads_ref, valid_ref,
-                               norm_ref, out_ref):
-    """Pallas tile: one (P, P) distance matrix per grid step (P = 128 lanes).
-
-    Row quantities live on the sublane axis, column quantities on the lane
-    axis; the full tile is produced with VPU elementwise ops only."""
-    starts = starts_ref[0, :]
-    ends = ends_ref[0, :]
-    reads = reads_ref[0, :]
-    valid = valid_ref[0, :]
-    centers = (starts + ends) // 2
-    spans = ends - starts
-
-    centers_row = centers[:, None]
-    centers_col = centers[None, :]
-    spans_row = spans[:, None]
-    spans_col = spans[None, :]
-    delta_center = jnp.abs(centers_row - centers_col).astype(jnp.float32)
-    delta_span = jnp.abs(spans_row - spans_col).astype(jnp.float32)
-    max_span = jnp.maximum(jnp.maximum(spans_row, spans_col), 1).astype(jnp.float32)
-    distance = delta_center / norm_ref[0] + delta_span / max_span
-
-    same_read = reads[:, None] == reads[None, :]
-    p = starts.shape[0]
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (p, p), 0)
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (p, p), 1)
-    off_diagonal = row_ids != col_ids
-    distance = jnp.where(same_read & off_diagonal, BIG, distance)
-    pair_valid = valid[:, None] & valid[None, :]
-    out_ref[0] = jnp.where(pair_valid, distance, BIG)
-
-
-@partial(jax.jit, static_argnames=("interpret",))
-def span_position_matrix_pallas(starts, ends, read_ids, valid,
-                                position_distance_normalizer,
-                                interpret: bool = False):
-    """Pallas-tiled batched distance matrices (TPU path; interpret=True runs
-    the same kernel on any backend for validation)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    batch, p = starts.shape
-    norm = jnp.full((1,), position_distance_normalizer, dtype=jnp.float32)
-    grid = (batch,)
-    row_spec = pl.BlockSpec((1, p), lambda b: (b, 0), memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _span_position_tile_kernel,
-        grid=grid,
-        in_specs=[row_spec, row_spec, row_spec, row_spec,
-                  pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=pl.BlockSpec((1, p, p), lambda b: (b, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((batch, p, p), jnp.float32),
-        interpret=interpret,
-    )(starts, ends, read_ids, valid, norm)

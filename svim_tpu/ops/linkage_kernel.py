@@ -4,8 +4,8 @@ Device counterpart of scipy's linkage+fcluster as used by CLUSTER
 (reference: SVIM_clustering.py:170-171) and of the host implementation in
 svim_tpu.cluster.linkage.  Each partition is a fixed (P, P) distance matrix
 (P <= 128 after the reference's subsampling cap), so the whole agglomeration
-fits one VMEM tile: P-1 masked argmin+update steps under fori_loop, batched
-over partitions with vmap.
+is P-1 masked argmin+update steps under fori_loop, batched over partitions
+with vmap.
 
 Two levels of API:
 

@@ -2,7 +2,7 @@
 
 New capability relative to the reference (which is single-threaded,
 README.rst:73): read batches are data-parallel over the mesh, per-shard
-signature tables are merged with all_gather over ICI, depth counts with psum.
+signature tables are merged with all_gather over the interconnect, depth counts with psum.
 """
 
 from svim_tpu.parallel.mesh import (

@@ -3,7 +3,7 @@
 Scaling recipe (per BASELINE north star): sorted read batches shard
 data-parallel over the 'data' mesh axis; each shard scans its CIGARs locally
 (the same fused kernel as the single-chip path); per-shard signature events
-are compacted into fixed-size tables and all-gathered over ICI, together
+are compacted into fixed-size tables and all-gathered over the mesh, together
 with the TRUE per-shard event counts so the host can detect overflow and
 re-run with a larger table (no silent truncation); per-locus depth counts
 are psum-reduced for genotyping.
@@ -32,11 +32,6 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from svim_tpu.ops.cigar_kernel import cigar_indel_scan
-
-try:  # jax >= 0.6 exposes shard_map at the top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 EVENTS_PER_SHARD = 128  # default per-shard event table (grown on overflow)
 
@@ -143,7 +138,7 @@ def build_pipeline_step(mesh: Mesh, min_sv_size: int = 40,
         shard = jax.lax.axis_index("data")
         global_rows = jnp.where(rows >= 0, rows + shard * rows_per_shard, -1)
 
-        # merge per-shard signature tables across the mesh (rides ICI);
+        # merge per-shard signature tables across the mesh;
         # shard-major tiling preserves global row order (shards are
         # contiguous row blocks of the sorted input)
         all_starts = jax.lax.all_gather(starts, "data", tiled=True)
@@ -163,7 +158,7 @@ def build_pipeline_step(mesh: Mesh, min_sv_size: int = 40,
 
     data = P("data")
     replicated = P()
-    return jax.jit(shard_map(
+    return jax.jit(jax.shard_map(
         step, mesh=mesh,
         in_specs=(P("data", None), data, data, replicated),
         out_specs=(replicated, replicated, replicated, replicated,

@@ -55,7 +55,10 @@ _initialized = False
 
 def initialize_from_env() -> int:
     """Initialize jax.distributed from SVIM_* env vars; returns this
-    process's rank (0 for single-process runs)."""
+    process's rank (0 for single-process runs).  Each rank drives the
+    cards it can see, so ranks sharing a host are launched with one card
+    each (CUDA_VISIBLE_DEVICES; `chip_smoke.py --chips 4` does this) —
+    otherwise every rank reserves memory on every card."""
     global _initialized
     info = env_process_info()
     if info is None:

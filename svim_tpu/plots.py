@@ -3,18 +3,52 @@
 Behavioral contract: svim/SVIM_plot.py — sv-lengths-q5.png / sv-lengths-q10.png
 (stacked histograms, 0-2 kb/10 bp and 0-20 kb/100 bp log-y) and
 sv-genotypes-q5.png (ref vs alt support scatter colored by genotype).
+
+matplotlib is optional: without it the plots are skipped with one warning
+and every other output is still written.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import os
 import random
 
-import matplotlib
 
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
+def _pyplot(outputs):
+    """matplotlib.pyplot on the Agg backend, or None (after one warning
+    naming the skipped `outputs`) when matplotlib is not installed."""
+    try:
+        import matplotlib
+    except ImportError:
+        logging.warning("matplotlib is not installed; skipping plots %s",
+                        ", ".join(outputs))
+        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
+
+
+LENGTH_PLOTS = ("sv-lengths-q5.png", "sv-lengths-q10.png")
+ALLELE_PLOT = "sv-genotypes-q5.png"
+
+
+def write_plots(deletion_candidates, inversion_candidates,
+                int_duplication_candidates, tan_dup_candidates,
+                novel_insertion_candidates, options):
+    """Every report plot; the genotype scatter only when genotyping ran."""
+    names = LENGTH_PLOTS + (() if options.skip_genotyping else (ALLELE_PLOT,))
+    if _pyplot([os.path.join(options.working_dir, name)
+                for name in names]) is None:
+        return
+    plot_sv_lengths(deletion_candidates, inversion_candidates,
+                    int_duplication_candidates, tan_dup_candidates,
+                    novel_insertion_candidates, options)
+    if not options.skip_genotyping:
+        plot_sv_alleles(deletion_candidates + inversion_candidates
+                        + int_duplication_candidates
+                        + novel_insertion_candidates, options)
 
 
 def _lengths_above(candidates, min_score, use_destination=False):
@@ -28,7 +62,11 @@ def _lengths_above(candidates, min_score, use_destination=False):
 def plot_sv_lengths(deletion_candidates, inversion_candidates,
                     int_duplication_candidates, tan_dup_candidates,
                     novel_insertion_candidates, options):
-    for min_score, suffix in ((5, "q5"), (10, "q10")):
+    plt = _pyplot([os.path.join(options.working_dir, name)
+                   for name in LENGTH_PLOTS])
+    if plt is None:
+        return
+    for min_score, name in zip((5, 10), LENGTH_PLOTS):
         lengths = {
             "DEL": _lengths_above(deletion_candidates, min_score),
             "INV": _lengths_above(inversion_candidates, min_score),
@@ -36,12 +74,12 @@ def plot_sv_lengths(deletion_candidates, inversion_candidates,
             "DUP_TAN": _lengths_above(tan_dup_candidates, min_score, True),
             "INS": _lengths_above(novel_insertion_candidates, min_score, True),
         }
-        _draw_sv_length_plot(lengths, os.path.join(
-            options.working_dir, "sv-lengths-{0}.png".format(suffix)),
+        _draw_sv_length_plot(plt, lengths, os.path.join(
+            options.working_dir, name),
             histtype=getattr(options, "plot_histtype", "stepfilled"))
 
 
-def _draw_sv_length_plot(dict_of_lengths, output, histtype="stepfilled"):
+def _draw_sv_length_plot(plt, dict_of_lengths, output, histtype="stepfilled"):
     # default "stepfilled" renders each stacked series as ONE polygon
     # instead of a Rectangle patch per bin (the reference's histtype="bar"
     # draws ~2000 patches per figure), and the pinned legend location skips
@@ -72,6 +110,10 @@ def _draw_sv_length_plot(dict_of_lengths, output, histtype="stepfilled"):
 
 
 def plot_sv_alleles(candidates, options):
+    output = os.path.join(options.working_dir, ALLELE_PLOT)
+    plt = _pyplot([output])
+    if plt is None:
+        return
     support = {}
     for genotype in ("1/1", "0/1", "0/0", "./."):
         support[genotype] = (
@@ -81,10 +123,10 @@ def plot_sv_alleles(candidates, options):
             [c.alt_reads for c in candidates
              if c.genotype == genotype and c.score >= 5
              and c.ref_reads is not None and c.alt_reads is not None])
-    _draw_allele_plot(support, os.path.join(options.working_dir, "sv-genotypes-q5.png"))
+    _draw_allele_plot(plt, support, output)
 
 
-def _draw_allele_plot(support, output):
+def _draw_allele_plot(plt, support, output):
     colors = {"1/1": "tab:red", "0/1": "tab:purple", "0/0": "tab:blue", "./.": "tab:brown"}
     num_points = sum(len(refs) for refs, _ in support.values())
     point_alpha = 10 / math.sqrt(max(100, num_points))

@@ -130,28 +130,18 @@ def test_resident_ins_route_fallback_rate_bounded(options):
         TELEMETRY.as_dict()
 
 
-def test_auto_backend_resident_predicate(monkeypatch):
-    """'auto' stays on the host ED batch (measured faster on every shape on
-    this hardware); the resident route engages via --edit_backend wavefront
-    anywhere, or via SVIM_RESIDENT_INS_AUTO=1 on TPU (attached silicon)."""
+def test_auto_backend_resident_predicate():
+    """'auto' stays on the native host ED batch on every platform; the
+    resident route engages only through --edit_backend wavefront (no
+    platform gate, no environment switch)."""
     from svim_tpu.cluster import device_cluster
     from svim_tpu.config import parse_arguments
 
     options = parse_arguments(arguments=["alignment", "wd", "x.bam", "g.fa"])
-    saved = device_cluster._PLATFORM_IS_TPU
-    try:
-        device_cluster._PLATFORM_IS_TPU = True
-        monkeypatch.delenv("SVIM_RESIDENT_INS_AUTO", raising=False)
-        assert not device_cluster.ins_resident_enabled(options)
-        monkeypatch.setenv("SVIM_RESIDENT_INS_AUTO", "1")
-        assert device_cluster.ins_resident_enabled(options)
-        assert not device_cluster.ins_resident_enabled(
-            options.replace(cluster_backend="exact"))
-        assert not device_cluster.ins_resident_enabled(
-            options.replace(edit_backend="python"))
-        device_cluster._PLATFORM_IS_TPU = False
-        assert not device_cluster.ins_resident_enabled(options)
-        assert device_cluster.ins_resident_enabled(
-            options.replace(edit_backend="wavefront"))
-    finally:
-        device_cluster._PLATFORM_IS_TPU = saved
+    assert not device_cluster.ins_resident_enabled(options)
+    assert not device_cluster.ins_resident_enabled(
+        options.replace(edit_backend="python"))
+    assert not device_cluster.ins_resident_enabled(
+        options.replace(cluster_backend="exact"))
+    assert device_cluster.ins_resident_enabled(
+        options.replace(edit_backend="wavefront"))

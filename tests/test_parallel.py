@@ -165,21 +165,3 @@ def test_span_position_matrix_matches_host():
         starts_pad, ends_pad, reads, valid,
         np.float32(options.position_distance_normalizer)))[0, :n, :n]
     np.testing.assert_allclose(device, host, rtol=1e-6)
-
-
-def test_span_position_matrix_pallas_interpret():
-    """The Pallas tile kernel computes the same matrices as the jnp version
-    (interpret mode runs the kernel on any backend)."""
-    from svim_tpu.ops.distance_kernel import span_position_matrix_pallas
-
-    rng = np.random.default_rng(11)
-    starts = rng.integers(1000, 2000, size=(3, 128)).astype(np.int32)
-    ends = starts + rng.integers(50, 500, size=(3, 128)).astype(np.int32)
-    reads = np.tile(np.arange(128, dtype=np.int32) % 60, (3, 1))
-    valid = np.ones((3, 128), bool)
-    valid[0, 100:] = False
-    pallas_out = np.asarray(span_position_matrix_pallas(
-        starts, ends, reads, valid, np.float32(900.0), interpret=True))
-    jnp_out = np.asarray(span_position_matrix(
-        starts, ends, reads, valid, np.float32(900.0)))
-    np.testing.assert_allclose(pallas_out, jnp_out, rtol=1e-5, atol=1e-5)
